@@ -26,7 +26,7 @@ from sicelore_tpu.utils import dna
 
 class NativeAligner:
     def __init__(self, reference, k: int = idx.K, w: int = idx.W,
-                 use_device: bool | None = None, junc_bed=None):
+                 junc_bed=None):
         if isinstance(reference, (str, Path)):
             contigs = idx.load_fasta(reference)
         else:
@@ -53,13 +53,6 @@ class NativeAligner:
                 self.junctions[c] = (
                     np.array([a for a, _ in lst], np.int64),
                     np.array([b for _, b in lst], np.int64))
-        if use_device is None:
-            try:
-                import jax
-                use_device = jax.devices()[0].platform == "tpu"
-            except Exception:
-                use_device = False
-        self.use_device = use_device
 
     # ---- per-read planning ------------------------------------------------
 
@@ -425,7 +418,7 @@ class NativeAligner:
 
     def align_batch(self, names, seqs, quals=None) -> list[BamRecord]:
         quals = quals or [b"I" * len(s) for s in seqs]
-        batcher = ext.GapBatcher(self.use_device)
+        batcher = ext.GapBatcher()
         plans = [self._plan(s, batcher) for s in seqs]
         if any(v for v in batcher.jobs.values()):
             batcher.run()

@@ -1,4 +1,4 @@
-"""Between-anchor gap alignment -> CIGAR, batched on the TPU.
+"""Between-anchor gap alignment -> CIGAR, batched on the device.
 
 Chains give exact-match anchors; the sequence between consecutive anchors
 aligns as:
@@ -6,12 +6,12 @@ aligns as:
   * diagonal runs (ref gap == query gap) -> M
   * introns (ref gap - query gap >= MIN_INTRON) -> N, junction snapped to
     the closest GT..AG donor/acceptor within SNAP bp of the anchor bound
-  * ordinary gaps -> banded NW through the SAME Pallas kernel as the
-    consensus engine (ops/poa_tpu.band_align_pallas): the ref segment is
-    the "center", the query segment the "read", and the kernel's walk
-    records decode into M/I/D runs (aligned: base=M, 4=D; per-column
-    insertion counts). Gaps outside the band envelope emit plain I+D runs
-    (rare; still valid SAM).
+  * ordinary gaps -> banded NW through the SAME band alignment as the
+    consensus engine (ops/poa_tpu.band_align): the ref segment is the
+    "center", the query segment the "read", and the walk records decode
+    into M/I/D runs (aligned: base=M, 4=D; per-column insertion counts).
+    Gaps outside the band envelope emit plain I+D runs (rare; still valid
+    SAM).
 
 All gap pairs of a read batch ride one device call per length bucket —
 the same fixed-shape batching discipline as every other device stage.
@@ -38,7 +38,8 @@ def _merge(ops: list, op: str, n: int):
 
 def cigar_from_alignment(aligned_row: np.ndarray, ins_sums: np.ndarray,
                          clen: int) -> list:
-    """Kernel walk records -> M/I/D runs for one (ref=center, query) pair.
+    """Band-align walk records -> M/I/D runs for one (ref=center, query)
+    pair.
 
     aligned_row [Lc+1]: slot t describes center col t+1 (code<4 = M,
     4 = D); ins_sums [Lc+1]: row r counts query insertions between center
@@ -89,10 +90,9 @@ def snap_junction(ref: bytes, jpos: int, intron: int) -> int:
 
 class GapBatcher:
     """Collects ordinary gap pairs across a read batch and aligns them in
-    one device sweep per bucket through the consensus band kernel."""
+    one device sweep per bucket through the consensus band alignment."""
 
-    def __init__(self, use_device: bool = True):
-        self.use_device = use_device
+    def __init__(self):
         self.jobs: dict[int, list] = defaultdict(list)  # Lc -> [(id, R, Q)]
         self.results: dict[int, list] = {}
 
@@ -100,7 +100,7 @@ class GapBatcher:
         from sicelore_tpu.ops import poa_tpu
         if not (1 <= len(R) <= MAX_SEG and 1 <= len(Q) <= MAX_SEG):
             return False
-        # the kernel's 2-bit uploads cannot carry N (assembly-gap runs in
+        # the 2-bit uploads cannot carry N (assembly-gap runs in
         # the reference genome): those segments take the plain I+D path
         if R.translate(None, poa_tpu._ACGT) or Q.translate(
                 None, poa_tpu._ACGT):
@@ -126,7 +126,7 @@ class GapBatcher:
             W = poa_tpu.w_for(Lc)
             PADL = poa_tpu.padl_for(W)
             Lrp = ((PADL + Lc + W + 127) // 128) * 128
-            Pp = max(poa_tpu.pp_step(Lc), 1 << (P - 1).bit_length())
+            Pp = max(poa_tpu.PAIR_STEP, 1 << (P - 1).bit_length())
             # v2 upload layout: each gap pair is its own "molecule"
             # (mids = identity), 2-bit packed like the consensus engine
             cmol = np.zeros((Pp, Lc), np.int8)
@@ -139,7 +139,7 @@ class GapBatcher:
                 cl[p] = len(R)
                 rl[p] = len(Q)
             mids = np.arange(Pp, dtype=np.int32)
-            fn = _gap_fn(Lc, self.use_device)
+            fn = _gap_fn(Lc)
             aligned, ins_sums, feas = fn(
                 jnp.asarray(poa_tpu.pack2bit_cols_np(rT)),
                 jnp.asarray(rl), jnp.asarray(mids),
@@ -162,32 +162,26 @@ class GapBatcher:
 _GAP_FNS: dict = {}
 
 
-def _gap_fn(Lc: int, use_device: bool):
-    """Per-(Lc, device) band-align callable, AOT-export-cached on TPU so
-    fresh processes skip tracing (same discipline as the consensus
-    engine's bucket fns)."""
-    key = (Lc, use_device)
-    fn = _GAP_FNS.get(key)
+def _gap_fn(Lc: int):
+    """Per-Lc jitted band alignment -> (aligned, per-column insertion
+    totals, feasible)."""
+    fn = _GAP_FNS.get(Lc)
     if fn is None:
+        import jax
         import jax.numpy as jnp
 
         from sicelore_tpu.ops import poa_tpu
 
-        def fused(r2b, rl, mids, cm2b, clm):
-            aligned, ins, feas, _ = poa_tpu.band_align_pallas(
-                r2b, rl, mids, cm2b, clm, Lc,
-                interpret=not use_device)
-            # per-column insertion totals ON device: the raw [P, Lc+1,
-            # K, 4] i32 download was ~33 MB/bucket over the ~10-25 MB/s
-            # link — this is [P, Lc+1] i8 (totals <= band width < 128)
+        @jax.jit
+        def fn(r2b, rl, mids, cm2b, clm):
+            aligned, ins, feas, _ = poa_tpu.band_align(
+                r2b, rl, mids, cm2b, clm, Lc)
+            # per-column insertion totals on device: [P, Lc+1] i8 (totals
+            # <= band width < 128) instead of the [P, Lc+1, K, 4] votes
             isum = ins.astype(jnp.int32).sum(axis=(2, 3)).astype(jnp.int8)
             return aligned, isum, feas
 
-        fn = fused
-        if use_device:
-            from sicelore_tpu.utils import aotcache
-            fn = aotcache.wrap("consensus", f"gap2|{Lc}", fn)
-        _GAP_FNS[key] = fn
+        _GAP_FNS[Lc] = fn
     return fn
 
 

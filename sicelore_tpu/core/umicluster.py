@@ -66,7 +66,7 @@ def pairwise_ed(umis: list[bytes], use_device: bool | None = None) -> np.ndarray
 
     Small groups run scalar Myers on the host; large groups batch through
     the device kernel (ops.editdist.myers_global_pairwise) in pattern-
-    length classes — the TPU analog of the jar's DistanceMatrix."""
+    length classes — the batched analog of the jar's DistanceMatrix."""
     K = len(umis)
     if use_device is None:
         use_device = K >= DEVICE_ED_THRESHOLD

@@ -1,9 +1,10 @@
 """ctypes bindings for the native C++ runtime components (native/).
 
 Auto-builds native/build/libbgzf.so with `make -C native` on first use when
-a toolchain is available; all callers gracefully fall back to the pure-
-Python paths when the library is missing (pybind11 is not available in this
-image — ctypes over a C ABI instead).
+a toolchain is available; all callers fall back to the pure-Python paths
+when the library is missing (ctypes over a C ABI; the host encoder is a
+CPython extension). SICELORE_NATIVE_BUILD names another build directory
+(chip_smoke.py builds a fresh one with `make -C native BUILD=<dir>`).
 """
 from __future__ import annotations
 
@@ -15,21 +16,24 @@ from pathlib import Path
 import numpy as np
 
 _NATIVE_DIR = Path(__file__).resolve().parents[2] / "native"
-_LIB_PATH = _NATIVE_DIR / "build" / "libbgzf.so"
+BUILD_DIR = Path(os.environ.get("SICELORE_NATIVE_BUILD",
+                                _NATIVE_DIR / "build"))
+_LIB_PATH = BUILD_DIR / "libbgzf.so"
 _lib = None
 _tried = False
 
 
 def _build() -> bool:
     try:
-        r = subprocess.run(["make", "-C", str(_NATIVE_DIR)],
+        r = subprocess.run(["make", "-C", str(_NATIVE_DIR),
+                            f"BUILD={BUILD_DIR}"],
                            capture_output=True, timeout=120)
         return r.returncode == 0 and _LIB_PATH.exists()
     except Exception:
         return False
 
 
-_HOSTENC_PATH = _NATIVE_DIR / "build" / "sicelore_hostenc.so"
+_HOSTENC_PATH = BUILD_DIR / "sicelore_hostenc.so"
 _hostenc = None
 _hostenc_tried = False
 

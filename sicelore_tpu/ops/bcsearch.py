@@ -1,16 +1,28 @@
-"""Cell-barcode whitelist search: tiled Pallas TPU kernel + jnp fallback.
+"""Cell-barcode whitelist search: fused Myers sweep + top-2 reduction.
 
 The hot loop of the reference's read scan is the per-read barcode
 edit-distance search (jar BarcodeMatchTester/BCnucTwoBitPerBaseEDtester:
 enumerate ED-neighborhood of the read's BC window, probe a hash set, track
-best + second-best ED). Here: a [reads x barcodes] Myers bit-parallel sweep.
-The Pallas kernel tiles (B, N), keeps the PV/MV/score state in VMEM for the
-whole text loop (compute-bound; zero HBM traffic for state), and reduces
-best / best-index / second-best-ED / end-position in-kernel so only [B, 4]
-leaves the chip.
+best + second-best ED). Here: a [reads x barcodes] Myers bit-parallel sweep
+whose only useful output is four numbers per read (best ED, its barcode
+index, second-best ED, end position of the best match).
 
-Grid layout: (B/bt, N/nt); the output block for row-tile i is revisited for
-every barcode tile j and accumulated in place (index_map (i, j) -> (0, i)).
+Two implementations of one contract (`sweep_top2`):
+
+  * `sweep_top2_ref` — plain jnp: the text loop as a partly unrolled scan
+    so XLA fuses several characters per step, then the masked top-2 over
+    the barcode axis. It runs on every backend and is the oracle of the
+    kernel.
+  * `sweep_top2_triton` — a Pallas kernel through Triton for the GPU. Each
+    program owns a block of reads, keeps the Myers state of one barcode
+    tile in registers for the whole window, and folds the tile's top-2
+    into a running best/second carried across the barcode tiles inside the
+    program, so the [B, N] state never reaches device memory: it reads the
+    windows and the pattern bitmasks and writes [4, B].
+
+`sweep_top2` lowers the kernel on CUDA and the plain version elsewhere
+(`jax.lax.platform_dependent`), so CPU tests run the reference and the
+GPU runs the kernel from the same call site.
 """
 from __future__ import annotations
 
@@ -20,160 +32,201 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from sicelore_tpu.ops import editdist
 
 BIG = 2**30  # sentinel for masked lanes (avoids int32 overflow in +1)
+REF_SLICE = 2048   # reads per plain-sweep block: bounds the [S, N] state
+REF_UNROLL = 4     # window characters fused per plain-sweep loop step
+BT, NT = 16, 128   # kernel tile: reads per program x barcodes per step
+NUM_WARPS = 4
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
-def _bc_sweep_kernel(nvalid_ref, win_ref, peq_ref, out_ref,
-                     *, m: int, W: int, track_pos: bool):
-    """One (row-tile, barcode-tile) cell of the whitelist sweep.
+def _full_mask(m: int):
+    return jnp.uint32((1 << m) - 1) if m < 32 else jnp.uint32(0xFFFFFFFF)
 
-    The text loop is FULLY UNROLLED (W is static, ~22): a fori_loop
-    iteration costs ~1.3 us of fixed overhead on this target, which at
-    W=22 x 2048 grid cells was ~60 ms of pure loop tax per 32k-read
-    batch. State lives in vector registers, not VMEM scratch."""
-    j = pl.program_id(1)
-    bt = win_ref.shape[1]
-    nt = peq_ref.shape[1]
-    full = jnp.uint32((1 << m) - 1) if m < 32 else jnp.uint32(0xFFFFFFFF)
+
+def _myers_init(m: int, shape):
+    z = jnp.zeros(shape, jnp.uint32)
+    score = jnp.full(shape, m, jnp.int32)
+    return (z + _full_mask(m), z, score, score,
+            jnp.full(shape, -1, jnp.int32))
+
+
+def _myers_step(state, wc, peqs, t, m: int, track_pos: bool):
+    """One text character of the semi-global Myers sweep. state = (PV, MV,
+    score, best, bestpos); wc and the 4 pattern bitmask rows `peqs`
+    broadcast to the state shape; t is the text position."""
+    PV, MV, score, best, bestpos = state
     hibit = jnp.uint32(m - 1)
-    z = jnp.zeros((bt, nt), dtype=jnp.uint32)
+    z = jnp.zeros_like(PV)
+    eq = jnp.where(wc == 0, peqs[0] + z,
+          jnp.where(wc == 1, peqs[1] + z,
+           jnp.where(wc == 2, peqs[2] + z,
+            jnp.where(wc == 3, peqs[3] + z, z))))
+    Xv = eq | MV
+    Xh = (((eq & PV) + PV) ^ PV) | eq
+    Ph = MV | ~(Xh | PV)
+    Mh = PV & Xh
+    score = score + ((Ph >> hibit) & jnp.uint32(1)).astype(jnp.int32)
+    score = score - ((Mh >> hibit) & jnp.uint32(1)).astype(jnp.int32)
+    Ph = Ph << jnp.uint32(1)  # free text start (search variant)
+    Mh = Mh << jnp.uint32(1)
+    PV = Mh | ~(Xv | Ph)
+    MV = Ph & Xv
+    if track_pos:
+        bestpos = jnp.where(score < best, t, bestpos)
+    return PV, MV, score, jnp.minimum(score, best), bestpos
 
-    PV = z + full
-    MV = z
-    score = jnp.full((bt, nt), m, dtype=jnp.int32)
-    best = score
-    bestpos = jnp.full((bt, nt), -1, dtype=jnp.int32)
-    peq_rows = [peq_ref[c, :][None, :] for c in range(4)]
 
-    for t in range(W):
-        # [bt, 1] int32 (reshape of a 32-bit vector is a supported no-op;
-        # reshaping an i1 mask is not — compare after broadcasting)
-        wc = win_ref[t, :][:, None]
-        eq = jnp.where(wc == 0, peq_rows[0],
-              jnp.where(wc == 1, peq_rows[1],
-               jnp.where(wc == 2, peq_rows[2],
-                jnp.where(wc == 3, peq_rows[3], z))))
-        Xv = eq | MV
-        Xh = (((eq & PV) + PV) ^ PV) | eq
-        Ph = MV | ~(Xh | PV)
-        Mh = PV & Xh
-        score = score + ((Ph >> hibit) & jnp.uint32(1)).astype(jnp.int32)
-        score = score - ((Mh >> hibit) & jnp.uint32(1)).astype(jnp.int32)
-        Ph = Ph << jnp.uint32(1)  # free text start (search variant)
-        Mh = Mh << jnp.uint32(1)
-        PV = Mh | ~(Xv | Ph)
-        MV = Ph & Xv
-        improved = score < best
-        if track_pos:
-            # full-shape t: a bare python-int scalar in this select crashes
-            # the Mosaic compile (relayout of a scalar into the vector
-            # layout), observed on the unrolled kernel
-            bestpos = jnp.where(improved,
-                                jnp.full((bt, nt), t, jnp.int32), bestpos)
-        best = jnp.minimum(score, best)
-
-    # mask barcode lanes beyond the real whitelist size
-    gidx = j * nt + jax.lax.broadcasted_iota(jnp.int32, (bt, nt), 1)
-    ed = jnp.where(gidx < nvalid_ref[0], best, BIG)
-
-    # within-tile best / first-argmin / second-best / end position
+def _top2(ed, gidx, bestpos, track_pos: bool):
+    """Per row over axis 1: best, first argmin, second best (the argmin
+    lane excluded), end position at the argmin (-1 without tracking)."""
     b1 = jnp.min(ed, axis=1)
     i1 = jnp.min(jnp.where(ed == b1[:, None], gidx, BIG), axis=1)
     b2 = jnp.min(jnp.where(gidx == i1[:, None], BIG, ed), axis=1)
+    if not track_pos:     # skip a reduction over a constant -1 array
+        return b1, i1, b2, jnp.full_like(b1, -1)
     pos = jnp.max(jnp.where(gidx == i1[:, None], bestpos, -1), axis=1)
-
-    @pl.when(j == 0)
-    def _():
-        out_ref[0, :] = b1
-        out_ref[1, :] = i1
-        out_ref[2, :] = b2
-        out_ref[3, :] = pos
-
-    @pl.when(j > 0)
-    def _():
-        ob, oi = out_ref[0, :], out_ref[1, :]
-        os2, op = out_ref[2, :], out_ref[3, :]
-        take_new = b1 < ob
-        out_ref[0, :] = jnp.minimum(ob, b1)
-        out_ref[1, :] = jnp.where(take_new, i1, oi)
-        out_ref[3, :] = jnp.where(take_new, pos, op)
-        out_ref[2, :] = jnp.minimum(jnp.maximum(ob, b1), jnp.minimum(os2, b2))
+    return b1, i1, b2, pos
 
 
-@functools.partial(jax.jit, static_argnames=("m", "bt", "nt", "interpret",
-                                             "track_pos"))
-def bc_sweep_pallas(windows: jax.Array, peq: jax.Array, nvalid: jax.Array,
-                    m: int, bt: int = 256, nt: int = 512,
-                    interpret: bool = False, track_pos: bool = True):
-    """windows [B, W] int32 (B multiple of bt), peq [4, N] uint32 (N multiple
-    of nt), nvalid [1] int32 -> out [4, B] int32 rows:
-    best_ed, best_idx, second_ed, best_end_pos (-1 unless track_pos —
-    the fused scan path never consumes end positions; skipping the
-    tracking drops 2 of the 18 inner-loop ops)."""
-    B, W = windows.shape
-    return _bc_sweep_tm(windows.T, peq, nvalid, m, bt=bt, nt=nt,
-                        interpret=interpret, track_pos=track_pos)
+def _sweep_block_ref(wins_tm, peq, nvalid, m: int, track_pos: bool):
+    W, S = wins_tm.shape
+    N = peq.shape[1]
+    peqs = [peq[c][None, :] for c in range(4)]
+
+    def step(state, x):
+        wc, t = x
+        return _myers_step(state, wc[:, None], peqs, t, m, track_pos), None
+
+    # a partly unrolled scan: XLA fuses REF_UNROLL characters per loop
+    # step; a fully unrolled 22-step chain makes XLA's compile time blow
+    # up (the fused expression duplicates shared producers)
+    (_, _, _, best, bestpos), _ = jax.lax.scan(
+        step, _myers_init(m, (S, N)),
+        (wins_tm, jnp.arange(W, dtype=jnp.int32)), unroll=REF_UNROLL)
+    gidx = jnp.broadcast_to(jnp.arange(N, dtype=jnp.int32)[None, :], (S, N))
+    ed = jnp.where(gidx < nvalid[0], best, BIG)
+    return jnp.stack(_top2(ed, gidx, bestpos, track_pos), axis=0)
 
 
-@functools.partial(jax.jit, static_argnames=("m", "bt", "nt", "interpret",
-                                             "track_pos"))
-def _bc_sweep_tm(windows_tm: jax.Array, peq: jax.Array, nvalid: jax.Array,
-                 m: int, bt: int = 256, nt: int = 512,
-                 interpret: bool = False, track_pos: bool = True):
-    """Text-major variant: windows_tm [W, B] (no transpose on the way in —
-    the fused Pallas scan emits BC windows text-major)."""
+@functools.partial(jax.jit, static_argnames=("m", "track_pos"))
+def sweep_top2_ref(windows_tm: jax.Array, peq: jax.Array, nvalid: jax.Array,
+                   m: int, track_pos: bool = False):
+    """Plain jnp sweep. windows_tm [W, B] int (codes; PAD/N never match),
+    peq [4, N] uint32, nvalid [1] int32 -> [4, B] int32 rows best_ed,
+    best_idx (lowest index on ties), second_ed (BIG when none), best end
+    position (-1 unless track_pos). Reads run in REF_SLICE blocks so the
+    [block, N] state stays bounded at any B."""
+    W, B = windows_tm.shape
+    wins = windows_tm.astype(jnp.int32)
+    if B <= REF_SLICE or B % REF_SLICE:
+        return _sweep_block_ref(wins, peq, nvalid, m, track_pos)
+    C = B // REF_SLICE
+    blocks = jnp.transpose(wins.reshape(W, C, REF_SLICE), (1, 0, 2))
+    out = jax.lax.map(
+        lambda w: _sweep_block_ref(w, peq, nvalid, m, track_pos), blocks)
+    return jnp.transpose(out, (1, 0, 2)).reshape(4, B)
+
+
+def _sweep_kernel(nv_ref, win_ref, peq_ref, out_ref, *, m: int, W: int,
+                  nt: int, n_tiles: int, track_pos: bool):
+    """One block of reads against the whole (padded) barcode list."""
+    bt = out_ref.shape[1]
+    nvalid = nv_ref[0]
+    wcs = [win_ref[t, :][:, None] for t in range(W)]        # [bt, 1] each
+    lane = jax.lax.broadcasted_iota(jnp.int32, (bt, nt), 1)
+
+    def tile(jt, carry):
+        b1, i1, b2, p1 = carry
+        off = pl.multiple_of(jt * nt, nt)
+        peqs = [peq_ref[c, pl.ds(off, nt)][None, :] for c in range(4)]
+        state = _myers_init(m, (bt, nt))
+        for t, wc in enumerate(wcs):          # the window, unrolled
+            state = _myers_step(state, wc, peqs, jnp.int32(t), m,
+                                track_pos)
+        best, bestpos = state[3], state[4]
+        gidx = lane + off
+        ed = jnp.where(gidx < nvalid, best, BIG)
+        tb1, ti1, tb2, tp1 = _top2(ed, gidx, bestpos, track_pos)
+        # tiles run in ascending barcode order: a tie keeps the earlier
+        # (lower-index) best, matching the reference's first argmin
+        take = tb1 < b1
+        return (jnp.minimum(b1, tb1), jnp.where(take, ti1, i1),
+                jnp.minimum(jnp.maximum(b1, tb1), jnp.minimum(b2, tb2)),
+                jnp.where(take, tp1, p1))
+
+    big = jnp.full((bt,), BIG, jnp.int32)
+    b1, i1, b2, p1 = jax.lax.fori_loop(
+        0, n_tiles, tile, (big, big, big, jnp.full((bt,), -1, jnp.int32)))
+    out_ref[0, :] = b1
+    out_ref[1, :] = i1
+    out_ref[2, :] = b2
+    out_ref[3, :] = p1
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "m", "track_pos", "bt", "nt", "num_warps"))
+def sweep_top2_triton(windows_tm: jax.Array, peq: jax.Array,
+                      nvalid: jax.Array, m: int, track_pos: bool = False,
+                      bt: int = BT, nt: int = NT, num_warps: int = NUM_WARPS):
+    """Pallas/Triton sweep; same contract as `sweep_top2_ref`. B is padded
+    to the read tile and N to the barcode tile here (padded barcodes sit
+    beyond nvalid and are masked; padded reads are sliced off)."""
     W, B = windows_tm.shape
     N = peq.shape[1]
-    assert B % bt == 0 and N % nt == 0
-    grid = (B // bt, N // nt)
-    kernel = functools.partial(_bc_sweep_kernel, m=m, W=W,
-                               track_pos=track_pos)
-    return pl.pallas_call(
+    Wp = max(8, 1 << (W - 1).bit_length())   # Triton blocks are powers of 2
+    Bp, Np = _round_up(B, bt), _round_up(N, nt)
+    wins = jnp.pad(windows_tm.astype(jnp.int32), ((0, Wp - W), (0, Bp - B)),
+                   constant_values=5)
+    peq_p = jnp.pad(peq, ((0, 0), (0, Np - N)))
+    kernel = functools.partial(_sweep_kernel, m=m, W=W, nt=nt,
+                               n_tiles=Np // nt, track_pos=track_pos)
+    out = pl.pallas_call(
         kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((W, bt), lambda i, j, nv: (0, i), memory_space=pltpu.VMEM),
-                pl.BlockSpec((4, nt), lambda i, j, nv: (0, j), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec((4, bt), lambda i, j, nv: (0, i), memory_space=pltpu.VMEM),
-        ),
-        out_shape=jax.ShapeDtypeStruct((4, B), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=grid[0] * grid[1] * bt * nt * W * 18,
-            bytes_accessed=B * W * 4 + N * 16 + B * 16,
-            transcendentals=0,
-        ),
-        # the unrolled state (6 live [bt, nt] i32 registers with track_pos)
-        # spills past the default 16M scoped-vmem budget
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=32 * 1024 * 1024),
-        interpret=interpret,
-    )(nvalid, windows_tm, peq)
+        grid=(Bp // bt,),
+        in_specs=[pl.BlockSpec((1,), lambda i: (0,)),
+                  pl.BlockSpec((Wp, bt), lambda i: (0, i)),
+                  pl.BlockSpec((4, Np), lambda i: (0, 0))],
+        out_specs=pl.BlockSpec((4, bt), lambda i: (0, i)),
+        out_shape=jax.ShapeDtypeStruct((4, Bp), jnp.int32),
+        compiler_params=pltriton.CompilerParams(num_warps=num_warps,
+                                                num_stages=1),
+        backend="triton",
+        name="bc_sweep_top2",
+    )(nvalid.astype(jnp.int32), wins, peq_p)
+    return out[:, :B]
+
+
+def sweep_top2(windows_tm: jax.Array, peq: jax.Array, nvalid: jax.Array,
+               m: int, track_pos: bool = False):
+    """The whitelist sweep as the pipeline calls it: the Triton kernel
+    when lowering for CUDA, the plain version on every other backend."""
+    return jax.lax.platform_dependent(
+        windows_tm, peq, nvalid,
+        cuda=functools.partial(sweep_top2_triton, m=m, track_pos=track_pos),
+        default=functools.partial(sweep_top2_ref, m=m, track_pos=track_pos))
 
 
 # ---------------------------------------------------------------------------
-# MXU q-gram prefilter search (large used lists)
+# q-gram prefilter search (large used lists)
 # ---------------------------------------------------------------------------
 #
-# The brute sweep costs O(B * N * W) VPU work. For large N the TPU-native
-# answer is to put the candidate generation on the MXU: by the q-gram lemma
+# The brute sweep costs O(B * N * W) integer work. For large N the candidate
+# generation can go to the matrix unit instead: by the q-gram lemma
 # (Ukkonen), ED(pattern, s) <= k implies pattern and s share at least
 # (m - q + 1) - q*k  q-grams (bag semantics). With q = 4 the 256-dim 4-gram
 # count vectors of the read window and of every barcode turn "shared >= T"
 # into one [B, 256] x [256, N] matmul: dot(counts_w, counts_b) >= bag
 # intersection, so dot < T proves ED > k (no false negatives; false
 # positives are verified). Only the top-K scoring candidates per read then
-# run the exact Myers verify on the VPU — the same semantics as the
+# run the exact Myers verify — the same semantics as the
 # reference's ED-neighborhood enumeration with bailout radius
 # (jar BCnucTwoBitPerBaseEDtester, bailoutIfFoundAfterED): results are
 # exact within `radius`, and ed/ed2 beyond the radius report as not-found.
@@ -182,7 +235,7 @@ QGRAM_Q = 4
 
 def build_qgram_table(patterns: np.ndarray) -> np.ndarray:
     """[N, m] int8 barcode codes (all < 4) -> [256, N] float32 4-gram
-    counts, the MXU operand of the prefilter matmul."""
+    counts, the matrix operand of the prefilter product."""
     N, m = patterns.shape
     ng = m - QGRAM_Q + 1
     out = np.zeros((256, N), np.float32)
@@ -209,7 +262,7 @@ def qgram_prefilter_search(windows: jax.Array, qgram_t: jax.Array,
     peq [4, N] uint32; nvalid [1] int32.
     Returns out [5, B] int32 (best_ed, best_idx, second_ed, best_end_pos,
     overflow): best/second are BIG when no barcode lies within `radius`;
-    ties pick the lowest whitelist index (matching the brute kernel).
+    ties pick the lowest whitelist index (matching the brute sweep).
     overflow[b] = 1 when more than K candidates passed the q-gram
     threshold — caller must re-run those reads through the exact sweep.
     """
@@ -227,6 +280,10 @@ def qgram_prefilter_search(windows: jax.Array, qgram_t: jax.Array,
     onehot = (ids[:, :, None] == jnp.arange(256, dtype=jnp.int32)[None, None, :])
     counts = jnp.sum(jnp.where(ok[:, :, None], onehot, False),
                      axis=1).astype(jnp.bfloat16)
+    # The product is exact: both operands are small integer 4-gram counts
+    # (at most W - 3 = 19 per window, 13 per barcode), exactly
+    # representable in bf16, and every partial sum stays far below 2^24
+    # in the float32 accumulator — so no TF32 or bf16 rounding can arise.
     scores = jnp.dot(counts, qgram_t.astype(jnp.bfloat16),
                      preferred_element_type=jnp.float32)  # [B, N]
     lane = jnp.arange(N, dtype=jnp.int32)[None, :] < nvalid[0]
@@ -238,7 +295,7 @@ def qgram_prefilter_search(windows: jax.Array, qgram_t: jax.Array,
     # exact Myers verify on the K candidates (per-read pattern set)
     peq_c = jnp.stack([peq[c][top_i] for c in range(4)], axis=0)  # [4, B, K]
     hibit = jnp.uint32(m - 1)
-    full = jnp.uint32((1 << m) - 1) if m < 32 else jnp.uint32(0xFFFFFFFF)
+    full = _full_mask(m)
 
     def step(carry, inp):
         PV, MV, score, best, best_pos = carry
@@ -272,16 +329,10 @@ def qgram_prefilter_search(windows: jax.Array, qgram_t: jax.Array,
     return jnp.stack([b1, jnp.minimum(i1, BIG), b2, p1, overflow], axis=0)
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
 def bc_search(windows: np.ndarray, patterns_peq: np.ndarray, n_patterns: int,
-              m: int, use_pallas: bool | None = None):
-    """Host wrapper: pad shapes, dispatch Pallas on TPU / jnp elsewhere.
+              m: int):
+    """Host wrapper around `sweep_top2` (pads the batch to a power-of-two
+    bucket to bound the compiled shapes).
 
     Args:
       windows: [B, W] int8 base codes (the BC search window per read).
@@ -294,29 +345,15 @@ def bc_search(windows: np.ndarray, patterns_peq: np.ndarray, n_patterns: int,
       no second candidate exists (mirrors the reference's ed_sec=INTMAX).
     """
     B, W = windows.shape
-    if use_pallas is None:
-        use_pallas = _on_tpu()
-    if use_pallas:
-        bt, nt = 256, 512
-        # power-of-two batch bucket: bounds the number of compiled shapes
-        Bp = bt
-        while Bp < B:
-            Bp *= 2
-        Np = _round_up(max(n_patterns, 1), nt)
-        wins = np.full((Bp, W), 5, dtype=np.int32)  # PAD
-        wins[:B] = windows
-        peq = np.zeros((4, Np), dtype=np.uint32)
-        peq[:, :patterns_peq.shape[1]] = patterns_peq
-        out = np.asarray(bc_sweep_pallas(
-            jnp.asarray(wins), jnp.asarray(peq),
-            jnp.asarray([n_patterns], dtype=jnp.int32), m, bt=bt, nt=nt))
-        ed, idx, ed2, pos = out[0, :B], out[1, :B], out[2, :B], out[3, :B]
-    else:
-        ed_all, pos_all = editdist.myers_sweep(
-            jnp.asarray(windows), jnp.asarray(patterns_peq[:, :n_patterns]), m)
-        ed_np, idx_np, ed2_np, _ = editdist.best_two(np.asarray(ed_all))
-        ed, idx, ed2 = np.asarray(ed_np), np.asarray(idx_np), np.asarray(ed2_np)
-        pos = np.asarray(pos_all)[np.arange(B), idx]
+    Bp = 8
+    while Bp < B:
+        Bp *= 2
+    wins = np.full((W, Bp), 5, dtype=np.int32)  # PAD
+    wins[:, :B] = np.asarray(windows).T
+    out = np.asarray(sweep_top2(
+        jnp.asarray(wins), jnp.asarray(patterns_peq[:, :max(n_patterns, 1)]),
+        jnp.asarray([n_patterns], dtype=jnp.int32), m, track_pos=True))
+    ed, idx, ed2, pos = out[0, :B], out[1, :B], out[2, :B], out[3, :B]
     ed2 = np.where(ed2 >= int(BIG), editdist.INT_MAX, ed2).astype(np.int64)
     return {"ed": np.asarray(ed, dtype=np.int64),
             "idx": np.asarray(idx, dtype=np.int64),

@@ -1,12 +1,6 @@
-"""Two-half composite edge scan: text-major layout, jnp body + Pallas kernel.
+"""Two-half composite edge scan: text-major packed layout + jnp body.
 
-The round-3 edge scan spliced each read into a CONTIGUOUS [B, 2E] composite
-and ran a jnp fusion of polyA/T rolling counts, window gathers and Myers
-adapter searches — measured ~90 ms per 32k reads on this target (the whole
-chain compiles into one latency-bound fusion), and it runs twice per read
-(pass 1 + pass 2).
-
-Here the composite is TWO INDEPENDENT HALVES:
+Each read is spliced into a composite of TWO INDEPENDENT HALVES:
 
   * head [E]: first min(L, E) bases, LEFT-aligned  (all REV polyT / 5'
     evidence lives here)
@@ -15,32 +9,29 @@ Here the composite is TWO INDEPENDENT HALVES:
 
 Right-aligning the tail makes every window's geometry uniform in array
 coordinates — the FWD polyA region is always the last `window` columns, the
-rc sweeps always start at column E-1 — so the Pallas kernel's column sweeps
-cover fixed ~176-column bands instead of per-read variable spans, and the
-whole batch ships TEXT-MAJOR ([ROWS, B] 2-bit packed) so no [B, W] -> [W, B]
-transpose ever runs on device (measured ~4.6 ms per 2 MB).
+rc sweeps always start at column E-1 — and the whole batch ships
+TEXT-MAJOR ([ROWS, B] 2-bit packed, 4 bases per byte), a quarter of the
+byte-code upload.
 
 Semantics vs the contiguous composite (models.readscan.make_edge_scan_fn):
 identical for reads where each end's evidence lies within E bases of that
 end — i.e. everything except reads shorter than 2E whose polyA/T RUN WALK
 crosses more than E bases from the end (a >140 bp homopolymer run: the walk
 clamps at the half boundary exactly like it already clamped for reads
-longer than 2E). Positions are returned in TRUE STRANDED read coordinates
-(no host-side remap step).
+longer than 2E). Coordinate rows are half-local and finalized to true
+stranded read coordinates on the host (`finalize_meta_np`).
 
-Reference behavior spec: /root/reference/Jar/config.xml:93-184 (polyAT /
-adapters / TSO sections), README.md:88-110 — same contract as the round-3
-scan, reimplemented for the TPU's preferred data layout.
+Reference behavior spec: the reference config.xml polyAT / adapters / TSO
+sections (summarized in SURVEY.md) — same contract as the contiguous scan.
 """
 from __future__ import annotations
 
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sicelore_tpu.ops import editdist, scan
+from sicelore_tpu.ops import scan
 from sicelore_tpu.utils import dna
 from sicelore_tpu.utils.config import PipelineConfig
 
@@ -162,7 +153,7 @@ def unpack_tm(packed_tm: jax.Array):
 
 
 # ---------------------------------------------------------------------------
-# jnp body (CPU pipeline path + kernel validation oracle)
+# jnp body (every backend; XLA fuses the unrolled per-read chains)
 # ---------------------------------------------------------------------------
 
 def make_edge_scan2_jnp(cfg: PipelineConfig):
@@ -297,20 +288,9 @@ def make_edge_scan2_jnp(cfg: PipelineConfig):
     return body
 
 
-def make_edge_scan2_packed(cfg: PipelineConfig, use_pallas: bool | None = None):
-    """Unified body over the text-major packed input: fn(packed_tm
-    [PACK_ROWS, B] u8, peq_ad, peq_adc, peq_tso) -> meta [n_rows(cfg), B]
-    i32. Dispatches the Pallas kernel on TPU (3p chemistry), the jnp body
-    elsewhere."""
-    if use_pallas is None:
-        try:
-            use_pallas = jax.devices()[0].platform == "tpu"
-        except Exception:
-            use_pallas = False
-    is5p = getattr(cfg, "chemistry", "3p") == "5p"
-    if use_pallas and not is5p:
-        from sicelore_tpu.ops.edgescan_tpu import make_edge_scan2_kernel
-        return make_edge_scan2_kernel(cfg)
+def make_edge_scan2_packed(cfg: PipelineConfig):
+    """Body over the text-major packed input: fn(packed_tm [PACK_ROWS, B]
+    u8, peq_ad, peq_adc, peq_tso) -> meta [n_rows(cfg), B] i32."""
     body = make_edge_scan2_jnp(cfg)
 
     def fn(packed_tm, peq_ad, peq_adc, peq_tso):

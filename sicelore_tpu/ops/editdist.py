@@ -1,12 +1,12 @@
-"""Myers bit-parallel edit-distance kernels (Pallas TPU + jnp fallback).
+"""Myers bit-parallel edit distance (jnp; XLA fuses the unrolled text loop).
 
-TPU-native replacement for the reference's cell-barcode/UMI edit-distance
-machinery (jar classes BCnucTwoBitPerBaseEDtester / UMInucTwoBitPerBaseEDtester:
+Replacement for the reference's cell-barcode/UMI edit-distance machinery
+(jar classes BCnucTwoBitPerBaseEDtester / UMInucTwoBitPerBaseEDtester:
 neighborhood enumeration of 2-bit-encoded mutated sequences probed against a
 hash set). Here the whole used-barcode list is swept per read with Hyyrö/Myers
 bit-parallel approximate matching: state for (read, barcode) pairs is two
-uint32 bit-vectors updated with ~15 VPU ops per text char, fully vectorized
-over a [reads, barcodes] tile held in VMEM.
+uint32 bit-vectors updated with ~15 integer ops per text char, vectorized
+over [reads, barcodes] (ops.bcsearch holds the fused sweep + top-2).
 
 Semantics:
   * `myers_sweep` — semi-global search: min edit distance of each pattern
@@ -33,6 +33,7 @@ import numpy as np
 from sicelore_tpu.utils import dna
 
 INT_MAX = 2**31 - 1  # reference reports ed_sec=2147483647 when none found
+UNROLL = 8           # text characters fused per scan step
 
 
 # ---------------------------------------------------------------------------
@@ -154,7 +155,10 @@ def _eq_select(tc, peq):
 
 
 # ---------------------------------------------------------------------------
-# jnp implementations (run everywhere; XLA fuses the scan body)
+# jnp implementations (the text loops are partly unrolled scans: the state
+# per step is a few uint32 words per (read, pattern) lane, so XLA fuses
+# UNROLL characters per loop step; a fully unrolled chain makes XLA's
+# compile time grow steeply with its length)
 # ---------------------------------------------------------------------------
 
 @functools.partial(jax.jit, static_argnames=("m",))
@@ -190,7 +194,8 @@ def myers_sweep(windows: jax.Array, peq: jax.Array, m: int):
     bp0 = jnp.full((B, N), -1, dtype=jnp.int32)
     (_, _, _, best, best_pos), _ = jax.lax.scan(
         step, (PV0, MV0, s0, s0, bp0),
-        (windows.T.astype(jnp.int8), jnp.arange(W, dtype=jnp.int32)))
+        (windows.T.astype(jnp.int8), jnp.arange(W, dtype=jnp.int32)),
+        unroll=UNROLL)
     return best, best_pos
 
 
@@ -249,104 +254,3 @@ def myers_global_pairwise(peq_g: jax.Array, texts: jax.Array, tlens: jax.Array, 
         step, (PV0, MV0, s0, out0),
         (jnp.moveaxis(texts, 2, 0).astype(jnp.int8), jnp.arange(L, dtype=jnp.int32)))
     return out
-
-
-# ---------------------------------------------------------------------------
-# Single-pattern window search — Pallas TPU kernel
-# ---------------------------------------------------------------------------
-#
-# The jnp myers_sweep with one pattern is a W-step lax.scan whose per-step
-# state is a [B]-sized vector; XLA compiles the whole chain into one giant
-# latency-bound fusion (traced at ~20 ms per 2048-window slice on the
-# adapter searches — most of the edge/internal scans' device time). Here
-# the chain runs inside one Pallas kernel on full [8, 128] tiles (1024
-# windows each), 16 text columns unrolled per loop iteration.
-
-def _win1_kernel(peq_ref, win_ref, out_ref, *, m: int, W: int):
-    from jax.experimental import pallas as pl
-    full = jnp.uint32((1 << m) - 1) if m < 32 else jnp.uint32(0xFFFFFFFF)
-    hibit = jnp.uint32(m - 1)
-    shp = (8, 128)
-    PV0 = jnp.full(shp, full, jnp.uint32)
-    MV0 = jnp.zeros(shp, jnp.uint32)
-    s0 = jnp.full(shp, m, jnp.int32)
-    bp0 = jnp.full(shp, -1, jnp.int32)
-    peq = [peq_ref[0, c].astype(jnp.uint32) for c in range(4)]
-    zero32 = jnp.zeros(shp, jnp.uint32)
-
-    def col(t, wc, st):
-        PV, MV, score, best, bestpos = st
-        eq = jnp.where(wc == 0, zero32 + peq[0],
-              jnp.where(wc == 1, zero32 + peq[1],
-               jnp.where(wc == 2, zero32 + peq[2],
-                jnp.where(wc == 3, zero32 + peq[3], zero32))))
-        Xv = eq | MV
-        Xh = (((eq & PV) + PV) ^ PV) | eq
-        Ph = MV | ~(Xh | PV)
-        Mh = PV & Xh
-        score = score + ((Ph >> hibit) & jnp.uint32(1)).astype(jnp.int32)
-        score = score - ((Mh >> hibit) & jnp.uint32(1)).astype(jnp.int32)
-        Ph = Ph << jnp.uint32(1)  # search variant: free text start
-        Mh = Mh << jnp.uint32(1)
-        PV = Mh | ~(Xv | Ph)
-        MV = Ph & Xv
-        improved = score < best
-        bestpos = jnp.where(improved, t, bestpos)
-        best = jnp.where(improved, score, best)
-        return PV, MV, score, best, bestpos
-
-    U = 16
-    nblk = W // U
-
-    def blk(b, st):
-        t0 = b * U
-        wts = win_ref[pl.ds(t0, U)].astype(jnp.int32)   # [U, 8, 128]
-        for u in range(U):
-            st = col(t0 + u, wts[u], st)
-        return st
-
-    st = jax.lax.fori_loop(0, nblk, blk,
-                           (PV0, MV0, s0, s0, bp0)) if nblk else \
-        (PV0, MV0, s0, s0, bp0)
-    if W % U:
-        t0 = nblk * U
-        wts = win_ref[pl.ds(t0, W % U)].astype(jnp.int32)
-        for u in range(W % U):
-            st = col(t0 + u, wts[u], st)
-    _, _, _, best, bestpos = st
-    out_ref[:] = (best << 16) | (bestpos & 0xFFFF)
-
-
-@functools.partial(jax.jit, static_argnames=("m", "interpret"))
-def myers_win1_pallas(windows: jax.Array, peq1: jax.Array, m: int,
-                      interpret: bool = False):
-    """Single-pattern semi-global search over each window row.
-
-    windows [B, W] int8 (B a multiple of 1024), peq1 [4, 1] uint32.
-    Returns (ed [B] int32, end_pos [B] int32) — identical semantics to
-    myers_sweep(windows, peq1, m) sliced to pattern 0 (ties -> first)."""
-    from jax.experimental import pallas as pl  # noqa: F811
-    from jax.experimental.pallas import tpu as pltpu
-    import functools as _ft
-    B, W = windows.shape
-    assert B % 1024 == 0 and m <= 31
-    wT = jnp.transpose(windows).reshape(W, B // 128, 128)
-    peq = peq1[:, 0].astype(jnp.int32).reshape(1, 4)
-    kernel = _ft.partial(_win1_kernel, m=m, W=W)
-    out = pl.pallas_call(
-        kernel,
-        grid=(B // 1024,),
-        in_specs=[
-            pl.BlockSpec((1, 4), lambda i: (0, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((W, 8, 128), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, 128), lambda i: (i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((B // 128, 128), jnp.int32),
-        cost_estimate=pl.CostEstimate(
-            flops=B * W * 18, transcendentals=0, bytes_accessed=B * W),
-        interpret=interpret,
-    )(peq, wT)
-    flat = out.reshape(B)
-    return flat >> 16, (flat & 0xFFFF).astype(jnp.int16).astype(jnp.int32)

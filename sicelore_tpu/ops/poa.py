@@ -19,7 +19,7 @@ computation natively:
 
 Note: consensus bytes are not guaranteed byte-identical to spoa's (different
 MSA heuristic, same scoring); accuracy is validated against known truth in
-tests. The batched TPU engine (ops/poa_tpu.py) reproduces THIS module's
+tests. The batched device engine (ops/poa_tpu.py) reproduces THIS module's
 semantics and is validated against it.
 """
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Read-scan compute ops: polyA/T window scan + adapter/TSO alignment search.
 
-TPU-native equivalents of the reference jar's readscan analyzers
+Equivalents of the reference jar's readscan analyzers
 (PolyATSearcher / PolyATadapterAnalyzer_{3p,5p}BCUMI and AdapterTSOanalyzer /
-NeedlemanMatch; behavior spec from /root/reference/Jar/config.xml:93-184 and
-README.md:88-110):
+NeedlemanMatch; behavior spec: the reference config.xml readscanner
+sections, summarized in SURVEY.md):
 
   * polyA/T: find a run of >= polyATlength bases with >= fractionATInPolyAT
     A (or T) within windowSearchForPolyA of a read end; also detect internal
@@ -158,17 +158,7 @@ def adapter_search(windows: jax.Array, peq1: jax.Array, m: int):
 
     windows [B, W] int8; peq1 [4, 1] uint32 (single pattern).
     Returns ed [B] int32 and end_pos [B] int32 (0-based last matched char in
-    the window; ties -> first). On TPU with kernel-friendly batch shapes
-    the Pallas window-search kernel runs instead of the jnp scan (whose
-    W-step chain compiles to one latency-bound fusion); results are
-    bit-identical (tests/test_editdist.py)."""
-    B = windows.shape[0]
-    try:
-        on_tpu = jax.devices()[0].platform == "tpu"
-    except Exception:
-        on_tpu = False
-    if on_tpu and B % 1024 == 0 and m <= 31:
-        return editdist.myers_win1_pallas(windows, peq1, m)
+    the window; ties -> first)."""
     ed, pos = editdist.myers_sweep(windows, peq1, m)
     return ed[:, 0], pos[:, 0]
 
@@ -197,7 +187,8 @@ def match_run_stats(windows: jax.Array, pattern: jax.Array, m: int):
         return (cur, best_per_diag), None
 
     init = (jnp.zeros((B, W), jnp.int32), jnp.zeros((B, W), jnp.int32))
-    (_, best_end), _ = jax.lax.scan(row, init, pattern.astype(jnp.int8))
+    (_, best_end), _ = jax.lax.scan(row, init, pattern.astype(jnp.int8),
+                                    unroll=editdist.UNROLL)
     # best_end[b, j] = longest run ending at window pos j (any i)
     best = jnp.max(best_end, axis=1)
     jbest = jnp.argmax(best_end, axis=1).astype(jnp.int32)
@@ -218,8 +209,7 @@ def run_bailout(windows: jax.Array, pattern: jax.Array, m: int,
     deterministic analog, and it decomposes into threshold pairs
     (a, c2-a) for a in [ceil(c2/2), c1) — any pair with a side >= c1 is
     already covered by the first test, and a single run long enough to
-    fake a pair has length >= c2 >= c1, also covered). The Pallas edge
-    kernel implements the identical online formulation.
+    fake a pair has length >= c2 >= c1, also covered).
 
     windows [B, W] int8; pattern [m] int8. Returns [B] bool.
     """
@@ -233,7 +223,8 @@ def run_bailout(windows: jax.Array, pattern: jax.Array, m: int,
         return cur, cur
 
     init = jnp.zeros((B, W), jnp.int32)
-    _, allruns = jax.lax.scan(row, init, pattern.astype(jnp.int8))
+    _, allruns = jax.lax.scan(row, init, pattern.astype(jnp.int8),
+                              unroll=editdist.UNROLL)
     best_end = jnp.max(allruns, axis=0)          # [B, W]: longest run @ j
     ok = jnp.any(best_end >= c1, axis=1)
     for a in range((c2 + 1) // 2, min(c1, c2)):

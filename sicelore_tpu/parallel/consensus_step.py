@@ -1,29 +1,18 @@
-"""Multi-chip sharded consensus steps.
+"""Multi-device sharded consensus step.
 
-Consensus pairs (center, read) are embarrassingly data-parallel: each chip
-aligns its shard of pairs, per-molecule vote tensors merge with a psum
-(molecules are assigned whole to a shard, so the psum simply gathers each
-molecule's votes from the single chip that produced them — zero
-elsewhere), and the assembly (argmax + QV + sort-compaction,
-ops.poa_tpu.assemble_votes) runs replicated on the merged votes. This is
-the TPU analog of the reference's consensus thread pool
-(MoleculeDataset.callConsensus, utils/MoleculeDataset.java:659-743) at
-pod-slice scale.
-
-Two inner engines behind the SAME outer psum/assemble structure:
-
-* `make_sharded_bucket_fn` — the PRODUCTION path: each shard runs the
-  Pallas band-align kernel + record extraction (ops.poa_tpu.
-  band_align_pallas) on its pair shard. Interpret mode serves CPU meshes
-  in tests; on a TPU mesh the kernel runs natively per chip.
-* `make_sharded_consensus_step` — the jnp vote engine
-  (ops.poa_tpu.consensus_votes) for CPU multi-host tests and the
-  BatchedConsensusEngine jnp fallback; returns raw vote tensors.
+Consensus pairs (center, read) are embarrassingly data-parallel: each
+device aligns its shard of pairs (ops.poa_tpu.band_align — the same
+function the single-device engine and the aligner call), per-molecule
+vote tensors merge with a psum (molecules are assigned whole to a shard,
+so the psum simply gathers each molecule's votes from the single device
+that produced them — zero elsewhere), and the assembly (argmax + QV +
+sort-compaction, ops.poa_tpu.assemble_votes) runs replicated on the merged
+votes. This is the analog of the reference's consensus thread pool
+(MoleculeDataset.callConsensus, utils/MoleculeDataset.java:659-743).
 """
 from __future__ import annotations
 
 import jax
-import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from sicelore_tpu.ops import poa_tpu
@@ -31,75 +20,34 @@ from sicelore_tpu.ops import poa_tpu
 
 def make_sharded_bucket_fn(mesh: Mesh, Lc: int, Pp: int, n2: int,
                            maxps: int, out_cols: int,
-                           data_axis: str = "data",
-                           interpret: bool = False):
-    """Production multi-chip consensus: jitted fn(reads2b [E, Pp] u8,
-    rl [Pp], mids [Pp], cmol2b [n2, Lc//4] u8, clm [n2]) -> merged
-    [n2, out_cols + 5] u8 (same contract as the single-chip fused bucket
-    fn in BatchedConsensusEngine._bucket_fn).
+                           data_axis: str = "data"):
+    """Jitted fn(reads2b [E, Pp] u8, rl [Pp], mids [Pp], cmol2b
+    [n2, Lc//4] u8, clm [n2]) -> merged [n2, out_cols + 5] u8 (same
+    contract as the single-device fused bucket fn in
+    BatchedConsensusEngine._bucket_fn).
 
     Pairs shard over `data_axis` (Pp divisible by axis_size *
-    pp_step(Lc)); centers/molecule rows replicate; per-shard votes
+    PAIR_STEP); centers/molecule rows replicate; per-shard votes
     psum-merge; assembly runs replicated — results are byte-identical to
-    single chip because vote addition is exact and every molecule's pairs
+    one device because vote addition is exact and every molecule's pairs
     contribute once wherever they live."""
     n_data = int(mesh.shape[data_axis])
-    assert Pp % (n_data * poa_tpu.pp_step(Lc)) == 0, (Pp, n_data)
+    assert Pp % (n_data * poa_tpu.PAIR_STEP) == 0, (Pp, n_data)
 
     def local(reads2b, rl, mids, cmol2b, clm):
-        aligned, ins, feas, cmol = poa_tpu.band_align_pallas(
-            reads2b, rl, mids, cmol2b, clm, Lc, interpret=interpret)
+        aligned, ins, feas, cmol = poa_tpu.band_align(
+            reads2b, rl, mids, cmol2b, clm, Lc)
         cv, iv, pc = poa_tpu.segment_votes(aligned, ins, feas, mids, n2)
         cv = jax.lax.psum(cv, data_axis)
         iv = jax.lax.psum(iv, data_axis)
         pc = jax.lax.psum(pc, data_axis)
         packed, out_len, pc, overflow = poa_tpu.assemble_votes(
             cv, iv, pc, cmol, clm, maxps, out_cols)
-        ol = out_len[:, None].astype(jnp.uint32)
-        lb = jnp.concatenate(
-            [((ol >> s) & 0xFF).astype(jnp.uint8) for s in (0, 8, 16, 24)],
-            axis=1)
-        ov = overflow[:, None].astype(jnp.uint8)
-        return jnp.concatenate([packed, lb, ov], axis=1)
+        return poa_tpu.merge_download(packed, out_len, overflow)
 
-    sharded = jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(P(None, data_axis), P(data_axis), P(data_axis),
-                  P(None, None), P(None)),
-        out_specs=P(None, None), check_vma=False)
-    shardings = tuple(NamedSharding(mesh, s) for s in
-                      (P(None, data_axis), P(data_axis), P(data_axis),
-                       P(None, None), P(None)))
-    return jax.jit(sharded, in_shardings=shardings)
-
-
-def make_sharded_consensus_step(mesh: Mesh, W: int, M: int,
-                                data_axis: str = "data"):
-    """jnp-engine step (CPU multi-host tests / jnp fallback): jitted
-    fn(center [P, Lc], clens, reads [P, Lr], rlens, mol_ids) ->
-    (col_votes [M, Lc+1, 5], ins_votes, pair_counts), pair batch sharded
-    over `data_axis` (P divisible by the axis size; mol_ids are global
-    molecule indices < M; keep one molecule's pairs on one shard for best
-    locality — correctness holds either way since segment sums merge
-    additively)."""
-    axes = dict(mesh.shape)
-    n_data = axes[data_axis]
-
-    def local(center, clens, reads, rlens, mol_ids):
-        cv, iv, pc = poa_tpu.consensus_votes(center, clens, reads, rlens,
-                                             mol_ids, W, M)
-        cv = jax.lax.psum(cv, data_axis)
-        iv = jax.lax.psum(iv, data_axis)
-        pc = jax.lax.psum(pc, data_axis)
-        return cv, iv, pc
-
-    sharded = jax.shard_map(
-        local, mesh=mesh,
-        in_specs=(P(data_axis, None), P(data_axis), P(data_axis, None),
-                  P(data_axis), P(data_axis)),
-        out_specs=(P(), P(), P()), check_vma=False)
-
-    shardings = tuple(NamedSharding(mesh, s) for s in
-                      (P(data_axis, None), P(data_axis),
-                       P(data_axis, None), P(data_axis), P(data_axis)))
-    return jax.jit(sharded, in_shardings=shardings), n_data
+    specs = (P(None, data_axis), P(data_axis), P(data_axis), P(None, None),
+             P(None))
+    sharded = jax.shard_map(local, mesh=mesh, in_specs=specs,
+                            out_specs=P(None, None), check_vma=False)
+    return jax.jit(sharded, in_shardings=tuple(
+        NamedSharding(mesh, s) for s in specs))

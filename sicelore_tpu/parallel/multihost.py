@@ -2,12 +2,11 @@
 
 The reference scales across hosts with Nextflow/SGE: each node runs the
 jar over a subset of fastq files and `MergeReadScannerStats` merges the
-serialized stats (/root/reference SURVEY §2.d "Nextflow DAG / multi-host
-scale-out"; README.md:155-162 "multiple fastqs process much faster").
+serialized stats (SURVEY §2.d "Nextflow DAG / multi-host scale-out").
 
-The TPU-native equivalent is a jax.distributed job: every process owns
+The equivalent here is a jax.distributed job: every process owns
 the fastq files `files[process_index::process_count]`, scans them on its
-local chips, and the tiny cross-host state (pass-1 whitelist hit counts —
+local devices, and the tiny cross-host state (pass-1 whitelist hit counts —
 one int64 per whitelist entry) is summed over DCN with a psum on the
 global mesh. Pass 2 then runs per-host against the identical merged used
 list, so per-host outputs concatenate into exactly the single-host result
@@ -22,9 +21,10 @@ def init(coordinator: str | None = None, num_processes: int | None = None,
          process_id: int | None = None):
     """jax.distributed entry point (idempotent).
 
-    On TPU pods the three arguments are auto-detected from the environment;
-    for CPU test clusters pass them explicitly
-    (coordinator "host:port", num_processes, process_id)."""
+    jax.distributed.initialize detects them only under a cluster manager
+    it knows (SLURM, Open MPI, Kubernetes); a plain GPU host or CPU test
+    cluster must pass all three explicitly (coordinator "host:port",
+    num_processes, process_id)."""
     import jax
 
     if jax.process_count() > 1:  # already initialized

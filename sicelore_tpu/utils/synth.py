@@ -108,3 +108,49 @@ def reads_to_batch(reads: list[dict], max_len: int | None = None):
         q = dna.phred_to_qual(r["qual"])[:L]
         quals[i, :len(q)] = q
     return seqs, quals, lens
+
+
+# ---------------------------------------------------------------------------
+# Vectorized generators for benchmark-scale datasets (same read layout and
+# event model as make_read / mutate, drawn from another random stream)
+# ---------------------------------------------------------------------------
+
+_ACGT_U8 = np.frombuffer(b"ACGT", np.uint8)
+_RC_TABLE = bytes.maketrans(b"ACGT", b"TGCA")
+
+
+def random_bytes(rng: np.random.Generator, n: int) -> bytes:
+    return _ACGT_U8[rng.integers(0, 4, n)].tobytes()
+
+
+def revcomp_bytes(seq: bytes) -> bytes:
+    return seq.translate(_RC_TABLE)[::-1]
+
+
+def mutate_fast(rng: np.random.Generator, seq: bytes, rate: float) -> bytes:
+    """Per base, with probability `rate`, one of substitution, insertion
+    after the base, or deletion (equally likely) — `mutate`'s model."""
+    a = np.frombuffer(seq, np.uint8)
+    n = len(a)
+    ev = rng.random(n) < rate
+    kind = rng.integers(0, 3, n)
+    sub = _ACGT_U8[rng.integers(0, 4, n)]
+    extra = _ACGT_U8[rng.integers(0, 4, n)]
+    ins = ev & (kind == 1)
+    reps = (~(ev & (kind == 2))).astype(np.int64) + ins
+    out = np.repeat(np.where(ev & (kind == 0), sub, a), reps)
+    out[(np.cumsum(reps) - 1)[ins]] = extra[ins]
+    return out.tobytes()
+
+
+def make_read_fast(rng: np.random.Generator, bc: str, cdna_len: int = 400,
+                   error_rate: float = 0.0, reverse: bool = False,
+                   polya_len: int = 20) -> dict:
+    """`make_read`'s 3' layout (TSO + cDNA + polyA + rc(UMI) + rc(BC) +
+    rc(adapter)), vectorized; returns dict(seq, qual, bc)."""
+    stranded = (TSO.encode() + random_bytes(rng, cdna_len)
+                + b"A" * polya_len + revcomp_bytes(random_bytes(rng, 12))
+                + revcomp_bytes(bc.encode()) + revcomp_bytes(ADAPTER.encode()))
+    stranded = mutate_fast(rng, stranded, error_rate)
+    seq = revcomp_bytes(stranded) if reverse else stranded
+    return {"seq": seq, "qual": b"I" * len(seq), "bc": bc}

@@ -300,7 +300,6 @@ def test_index_save_load(genome, tmp_path):
     al2.index = m2
     al2.k = m2.k
     al2.junctions = {}
-    al2.use_device = al1.use_device
     g = genome["chrT"]
     read = g[10_000:10_700]
     r1 = al1.align_batch([b"x"], [read])[0]

@@ -1,7 +1,10 @@
+from pathlib import Path
+
 from sicelore_tpu.utils.config import (DynamicEDTable, PipelineConfig, load_config_xml)
 
-REF_CONFIG = "/root/reference/Jar/config.xml"
-REF_BC_ED = "/root/reference/Jar/bcMaxEditDistances.xml"
+DATA = Path(__file__).parent / "data"
+REF_CONFIG = DATA / "config.xml"            # reference-format fixtures
+REF_BC_ED = DATA / "bcMaxEditDistances.xml"
 
 
 def test_defaults():
@@ -44,8 +47,7 @@ def test_load_reference_config_xml():
 
 def test_dynamic_ed_table():
     t = DynamicEDTable.load(REF_BC_ED)
-    # Reference values for BC length 16 at 1% error
-    # (Jar/bcMaxEditDistances.xml:10-34)
+    # Reference values for BC length 16 at 1% error (SURVEY.md)
     assert t.max_ed(16, 1, 50) == 4
     assert t.max_ed(16, 1, 1000) == 3
     assert t.max_ed(16, 1, 20000) == 2

@@ -39,7 +39,7 @@ def _new_scan(cfg, seqs, quals):
     import jax.numpy as jnp
     packed, qv2, lens, dirty, qsum = edgescan.encode_composite_tm(seqs, quals)
     assert not dirty.any()
-    body = edgescan.make_edge_scan2_packed(cfg, use_pallas=False)
+    body = edgescan.make_edge_scan2_packed(cfg)
     model = readscan.ReadScanModel(cfg)
     meta = np.asarray(body(jnp.asarray(packed), model.peq_ad,
                            model.peq_adc, model.peq_tso))

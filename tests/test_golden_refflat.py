@@ -3,7 +3,7 @@ reference (/root/reference/Data/gencode.v38.chr12.refFlat) — the quickrun
 dataset's annotation (reference README.md:58: hg38 chr12 Myl6 locus).
 
 These are the first tests touching real annotation rather than synthetic
-fixtures (VERDICT r2 item 6): refFlat parsing, gene-model selection, the
+fixtures: refFlat parsing, gene-model selection, the
 LocusFunction tagger and STRICT isoform assignment all run on real
 transcript structures (MYL6 / MYL6B, utils/UCSCRefFlatParser.java:92-164).
 """

@@ -1,5 +1,5 @@
 """Multi-host scan: a 2-process CPU cluster must reproduce the single-host
-run exactly (VERDICT r1 item 9 — the DCN/Nextflow scale-out story).
+run exactly.
 
 Each process owns files[pid::2]; pass-1 counts psum-merge so both derive
 the identical used-barcode list; process 0 writes merged stats +

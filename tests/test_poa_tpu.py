@@ -1,16 +1,18 @@
-"""Batched TPU consensus engine vs host engine + truth."""
+"""Batched device consensus engine vs the jnp oracle, host engine, truth."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from sicelore_tpu.ops import poa
+from sicelore_tpu.ops import poa_tpu as pt
 from sicelore_tpu.ops.editdist import levenshtein_np
 from sicelore_tpu.ops.poa_tpu import BatchedConsensusEngine
-from sicelore_tpu.utils import synth
+from sicelore_tpu.utils import dna, synth
 
 
 @pytest.fixture(scope="module")
 def engine():
-    return BatchedConsensusEngine(band=64)
+    return BatchedConsensusEngine()
 
 
 def _mols(rng, n_mol, depth, rate, length):
@@ -56,25 +58,22 @@ def test_device_engine_dispatch(engine):
     assert res[2][1] == bytes([53]) * 200  # full agreement -> 33+20
 
 
-def _pal_vs_jnp(mols, band):
-    """Byte-equality of the production Pallas path (interpret mode) vs the
-    jnp reference engine. Both engines must run the same band width: the
-    Pallas path derives W from the Lc bucket (w_for), the jnp engine from
-    `band` — mismatched bands would legitimately diverge at band edges."""
-    pal = BatchedConsensusEngine(force="pallas-interpret")
-    ref = BatchedConsensusEngine(band=band, force="jnp")
-    rp = pal(mols)
-    rj = ref(mols)
-    for i, ((pc, pq), (jc, jq)) in enumerate(zip(rp, rj)):
-        assert pc == jc, (i, pc, jc)
-        assert pq == jq, (i, pq, jq)
+def _dev_vs_oracle(mols, engine=None):
+    """Byte-equality of the device route (band_align + votes_assemble) vs
+    the plain oracle (consensus_votes + _assemble)."""
+    rd = (engine or BatchedConsensusEngine())(mols)
+    ro = pt.consensus_oracle(mols)
+    for i, ((dc, dq), (oc, oq)) in enumerate(zip(rd, ro)):
+        assert dc == oc, (i, dc, oc)
+        assert dq == oq, (i, dq, oq)
+    return rd
 
 
-def test_pallas_parity_w32():
-    """band_align_pallas + votes_assemble == consensus_votes + _assemble
-    over randomized molecules in the W=32 bucket (Lc <= 512), including
-    >K_INS insertion runs, deletions, near-band-edge length diffs, and a
-    center exactly at the bucket size (ADVICE r3 high)."""
+def test_band_align_parity_w32():
+    """band_align + votes_assemble == consensus_votes + _assemble over
+    randomized molecules in the W=32 bucket (Lc <= 512), including >K_INS
+    insertion runs, deletions, near-band-edge length diffs, and a center
+    exactly at the bucket size."""
     rng = np.random.default_rng(7)
     mols, _ = _mols(rng, 5, 5, 0.08, 220)
     # heavy-indel molecules: insertion runs longer than K_INS
@@ -97,10 +96,10 @@ def test_pallas_parity_w32():
     truth = synth.random_seq(rng, 256)
     mols.append([synth.mutate(rng, truth, 0.04).encode() for _ in range(4)]
                 + [truth.encode()])
-    _pal_vs_jnp(mols, band=32)
+    _dev_vs_oracle(mols)
 
 
-def test_pallas_parity_w64():
+def test_band_align_parity_w64():
     """Same parity in the W=64 bucket (Lc > 512)."""
     rng = np.random.default_rng(8)
     mols, _ = _mols(rng, 2, 4, 0.06, 560)
@@ -111,7 +110,7 @@ def test_pallas_parity_w64():
         s = truth[:pos] + synth.random_seq(rng, 7) + truth[pos:]
         reads.append(synth.mutate(rng, s, 0.04).encode())
     mols.append(reads)
-    _pal_vs_jnp(mols, band=64)
+    _dev_vs_oracle(mols)
 
 
 def test_mixed_length_buckets(engine):
@@ -139,12 +138,10 @@ def test_refine_pass():
         assert d2 <= d1 + 2, (d1, d2)
 
 
-def test_sharded_pallas_parity():
-    """The PRODUCTION multi-chip consensus path (pairs sharded over a
-    mesh, votes psum-merged, device assembly — parallel/consensus_step.
-    make_sharded_bucket_fn) must be byte-identical to the single-chip
-    Pallas path and the jnp oracle (VERDICT r4 item 1c: multi-chip
-    consensus on the production engine)."""
+def test_sharded_band_align_parity():
+    """The multi-device consensus route (pairs sharded over a 4-device
+    mesh, votes psum-merged, device assembly — parallel/consensus_step)
+    must be byte-identical to one device and to the plain oracle."""
     import jax
     from jax.sharding import Mesh
 
@@ -157,9 +154,47 @@ def test_sharded_pallas_parity():
     t = synth.random_seq(rng, 200)
     mols.append([(t[:80] + synth.random_seq(rng, 7) + t[80:]).encode()
                  for _ in range(3)] + [t.encode()])
-    mesh = Mesh(np.array(jax.devices()[:2]), ("data",))
-    r_sh = BatchedConsensusEngine(mesh=mesh, force="pallas-interpret")(mols)
-    r_1c = BatchedConsensusEngine(force="pallas-interpret")(mols)
-    r_j = BatchedConsensusEngine(band=32, force="jnp")(mols)
-    for i, (a, b, c) in enumerate(zip(r_sh, r_1c, r_j)):
-        assert a == b == c, i
+    mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
+    r_1c = _dev_vs_oracle(mols)
+    r_sh = BatchedConsensusEngine(mesh=mesh)(mols)
+    assert r_sh == r_1c
+
+
+def _pairs(rng, Lc, P, err):
+    """Random (center, read) pairs in band_records' text-major layout."""
+    W = pt.w_for(Lc)
+    PADL = pt.padl_for(W)
+    Lrp = ((PADL + Lc + W + 127) // 128) * 128
+    cent = np.zeros((Lc, P), np.int8)
+    reads = np.full((Lrp, P), 3, np.int8)
+    cl = np.zeros(P, np.int32)
+    rl = np.zeros(P, np.int32)
+    for p in range(P):
+        L = int(rng.integers(Lc // 2, Lc + 1))
+        t = synth.random_seq(rng, L)
+        r = synth.mutate(rng, t, err)[:Lc + W]
+        if abs(len(r) - L) >= W // 2 - 4:
+            r = t
+        if p % 3 == 1:          # lengths near the band edge
+            r = (r + synth.random_seq(rng, W // 2))[:L + W // 2 - 5]
+        cent[:L, p] = dna.encode(t)
+        reads[PADL:PADL + len(r), p] = dna.encode(r)
+        cl[p], rl[p] = L, len(r)
+    i_row = np.arange(Lrp)[:, None] - W // 2
+    rv = np.where((i_row >= 1) & (i_row <= rl[None, :]), reads, 4)
+    return W, (jnp.asarray(cent), jnp.asarray(rv.astype(np.int8)),
+               jnp.asarray(cl), jnp.asarray(rl))
+
+
+@pytest.mark.parametrize("Lc,P", [(256, 37), (1024, 5)])
+def test_band_records_triton_interpret(Lc, P, pallas_interpret):
+    """The Triton band-alignment kernels (Pallas interpret mode) emit the
+    plain version's walk records and feasibility exactly, at W=32 and
+    W=64, with a pair count that is not a multiple of the pair block."""
+    W, args = _pairs(np.random.default_rng(Lc), Lc, P, 0.08)
+    rec_r, feas_r = pt.band_records_ref(*args, W=W)
+    rec_t, feas_t = pt.band_records_triton(*args, W=W)
+    assert rec_t.shape == (P, Lc + 1)
+    np.testing.assert_array_equal(np.asarray(feas_t), np.asarray(feas_r))
+    np.testing.assert_array_equal(np.asarray(rec_t), np.asarray(rec_r))
+    assert np.asarray(feas_r).sum() > 0

@@ -2,10 +2,10 @@
 
 Sweeps molecule depth x read error rate x indel fraction, measures median
 consensus identity against the known truth, and writes the table the
-center-star policy decision rests on (VERDICT r3 item 7; reference spoa
+center-star policy decision rests on (reference spoa
 runs a partial-order graph, utils/Consensus.java:219).
 
-Run on TPU:  python tools/consensus_accuracy_study.py [out.md]
+Run from the repo root: python tools/consensus_accuracy_study.py [out.md]
 """
 import sys
 import time
@@ -70,6 +70,8 @@ def main(out_path="docs/CONSENSUS_ACCURACY.md"):
     def levenshtein_np(x, y):
         return banded_ed(x, y)
 
+    from sicelore_tpu.utils.jaxcache import enable_compile_cache
+    enable_compile_cache()
     eng = BatchedConsensusEngine()
     rows = []
     M = 32

@@ -4,7 +4,7 @@ shells to `spoa -r 2`).
 
 spoa itself is not installable here (zero egress), so this is a from-
 scratch graph POA used as the EXTERNAL anchor for the consensus accuracy
-study (VERDICT r4 item 7): reads are aligned one at a time to a growing
+study: reads are aligned one at a time to a growing
 partial-order graph with NW scoring (match +5 / mismatch -4 / gap -8 —
 spoa defaults and the engine's scores), matches fuse into existing
 nodes, mismatches/insertions add branch nodes, and the consensus is the
