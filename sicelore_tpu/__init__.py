@@ -1,6 +1,6 @@
 """sicelore_tpu — single-cell Nanopore long-read analysis engine in JAX.
 
-A from-scratch JAX/XLA framework (Pallas/Triton kernels on the GPU) with the capabilities of SiCeLoRe 2.1
+A from-scratch JAX/XLA framework with the capabilities of SiCeLoRe 2.1
 (https://github.com/ucagenomix/sicelore-2.1): read stranding, polyA/adapter/TSO
 scanning, chimera splitting, cell-barcode assignment against the 10x whitelist,
 edit-distance UMI clustering, per-UMI partial-order-alignment consensus,
